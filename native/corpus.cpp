@@ -1,10 +1,10 @@
 // Native corpus ingestion: trectext parsing, tokenization, vocabulary
 // selection, and token packing.
 //
-// This is the TPU-framework equivalent of the reference's native data layer
+// This is the framework's equivalent of the reference's native data layer
 // (cpp/data_indri.cpp + the Indri index it reads): the host-side, IO- and
 // string-heavy part of the pipeline that profits from C++ throughput at
-// collection scale.  Semantics mirror cunvsm_tpu/data/{text,vocab,corpus}.py
+// collection scale.  Semantics mirror cunvsm/data/{text,vocab,corpus}.py
 // exactly (the Python implementation remains as the reference fallback and
 // the oracle for differential tests):
 //
@@ -17,7 +17,7 @@
 //    frequencies recomputed over kept docs when a subset was dropped;
 //  * OOV positions dropped, or emitted as id 0 with include_oov.
 //
-// Exposed as a C API consumed through ctypes (cunvsm_tpu/data/native.py).
+// Exposed as a C API consumed through ctypes (cunvsm/data/native.py).
 
 #include "corpus.h"
 

@@ -1,5 +1,5 @@
 // Native Indri DiskIndex ingestion: the C++ twin of
-// cunvsm_tpu/data/indri.py (the Python implementation stays the semantic
+// cunvsm/data/indri.py (the Python implementation stays the semantic
 // oracle; tests/test_native.py runs both differentially over the
 // checked-in Brown index).
 //

@@ -1,4 +1,4 @@
-"""Whole-program A/B of canonical-step variants on the real TPU.
+"""Whole-program A/B of canonical-step variants on one GPU.
 
 Each variant runs in a fresh subprocess (CUNVSM_ACCUM_VARIANT is read at
 trace time) and measures exactly what bench.py measures: 20 steps chained
@@ -29,13 +29,17 @@ variant = json.loads(sys.argv[1])
 import jax
 import jax.numpy as jnp
 
-from cunvsm_tpu.config import (
+from cunvsm.cli._platform import enable_compile_cache
+
+enable_compile_cache()
+
+from cunvsm.config import (
     AdamConfig, AdamMode, ModelDesc, Nonlinearity, TrainConfig, UpdateMethod,
 )
-from cunvsm_tpu.models.objectives import TextEntityBatch
-from cunvsm_tpu.models.params import init_params
-from cunvsm_tpu.optim.updates import Optimizer
-from cunvsm_tpu.train.step import make_train_step
+from cunvsm.models.objectives import TextEntityBatch
+from cunvsm.models.params import init_params
+from cunvsm.optim.updates import Optimizer
+from cunvsm.train.step import make_train_step
 
 NUM_WORDS, NUM_ENTITIES, SCAN_STEPS = 65536, 262144, 20
 

@@ -1,14 +1,11 @@
-"""Ablation benchmark for the training-step hot path on real TPU.
+"""Stream-dtype ablation of the canonical training step on one GPU.
 
-Measures the canonical NVSM step (bench.py configuration) under combinations
-of the two round-2 optimizations:
+Measures the canonical NVSM step (bench.py configuration) with float32 or
+bfloat16 streams (mixed-precision gathers + gradient streams).
 
-  * stream_dtype bfloat16 (mixed-precision gathers + gradient streams)
-  * the fused Pallas full_adam dense sweep (CUNVSM_FUSED_ADAM)
-
-Usage: python scripts/bench_ablate.py [--steps 20] [--variants all]
-Writes one JSON line per variant to stdout.  Methodology identical to
-bench.py: scan-chained steps, D2H barrier.
+Usage: python scripts/bench_ablate.py [--steps 20] [--stream bfloat16]
+Writes one JSON line to stdout.  Methodology identical to bench.py:
+scan-chained steps, timed to a device-to-host fetch.
 """
 
 import argparse
@@ -17,21 +14,22 @@ import os
 import sys
 import time
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-def measure(stream_dtype: str, fused: bool, scan_steps: int):
-    os.environ["CUNVSM_FUSED_ADAM"] = "1" if fused else "0"
+
+def measure(stream_dtype: str, scan_steps: int):
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from cunvsm_tpu.config import (
+    from cunvsm.config import (
         AdamConfig, AdamMode, ModelDesc, Nonlinearity, TrainConfig,
         UpdateMethod,
     )
-    from cunvsm_tpu.models.objectives import TextEntityBatch
-    from cunvsm_tpu.models.params import init_params
-    from cunvsm_tpu.optim.updates import Optimizer
-    from cunvsm_tpu.train.step import make_train_step
+    from cunvsm.models.objectives import TextEntityBatch
+    from cunvsm.models.params import init_params
+    from cunvsm.optim.updates import Optimizer
+    from cunvsm.train.step import make_train_step
 
     NUM_WORDS, NUM_ENTITIES = 65536, 262144
     desc = ModelDesc(
@@ -82,7 +80,6 @@ def measure(stream_dtype: str, fused: bool, scan_steps: int):
 
     return {
         "stream_dtype": stream_dtype,
-        "fused_adam": fused,
         "ms_per_step": round(1000 * elapsed / scan_steps, 2),
         "pairs_per_sec": round(B * scan_steps / elapsed, 1),
         "compile_s": round(compile_s, 1),
@@ -93,12 +90,13 @@ def measure(stream_dtype: str, fused: bool, scan_steps: int):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--stream", default=None)
-    ap.add_argument("--fused", default=None)
+    ap.add_argument("--stream", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args()
-    # One variant per process: CUNVSM_FUSED_ADAM is read at trace time and
-    # jit caches would otherwise leak between variants.
-    r = measure(args.stream, args.fused == "1", args.steps)
+    from cunvsm.cli._platform import enable_compile_cache
+
+    enable_compile_cache()
+    r = measure(args.stream, args.steps)
     print(json.dumps(r), flush=True)
 
 

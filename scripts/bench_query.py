@@ -26,7 +26,7 @@ def bench_qlm(num_docs=500_000, vocab=65536, avg_len=200, queries=50, seed=0):
 
     import scipy.sparse
 
-    from cunvsm_tpu.query.qlm import QLMIndex, qlm_rank
+    from cunvsm.query.qlm import QLMIndex, qlm_rank
 
     rng = np.random.RandomState(seed)
     # Zipf-ish term distribution, ~avg_len distinct terms per doc.
@@ -76,6 +76,9 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
 
+    from cunvsm.cli._platform import enable_compile_cache
+
+    enable_compile_cache()
     rng = np.random.RandomState(0)
     E = rng.randn(args.docs, args.dim).astype(np.float32)
     E /= np.linalg.norm(E, axis=1, keepdims=True)

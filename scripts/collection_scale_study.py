@@ -1,4 +1,4 @@
-"""Collection-scale quality study of the TPU-native negative-sampling modes.
+"""Collection-scale quality study of the negative-sampling modes.
 
 The Cranfield quality table (PERFORMANCE.md) validates pooled negatives at
 1,398 documents — a regime where a 2048-row pool covers the whole
@@ -84,7 +84,7 @@ def make_corpus(num_docs: int, gen_seed: int = 12345):
     perm = np.argsort(rng.rand(num_docs, DOC_LEN), axis=1)
     docs = np.take_along_axis(docs, perm, axis=1).astype(np.int32)
 
-    from cunvsm_tpu.data.synth import corpus_from_tokens
+    from cunvsm.data.synth import corpus_from_tokens
 
     corpus = corpus_from_tokens(docs.reshape(-1), num_docs, DOC_LEN, VOCAB)
 
@@ -123,18 +123,17 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     logging.basicConfig(level="INFO", format="%(asctime)s %(message)s")
-    if args.platform:
-        import jax
+    from cunvsm.cli._platform import apply_platform
 
-        jax.config.update("jax_platforms", args.platform)
+    apply_platform(args)
 
-    from cunvsm_tpu.config import (
+    from cunvsm.config import (
         AdamConfig, AdamMode, ModelDesc, Nonlinearity, TrainConfig,
         UpdateMethod,
     )
-    from cunvsm_tpu.query.engine import QueryEngine
-    from cunvsm_tpu.query.metrics import evaluate_run
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.query.engine import QueryEngine
+    from cunvsm.query.metrics import evaluate_run
+    from cunvsm.train.trainer import train_model
 
     corpus, queries, qrels = make_corpus(args.num_docs)
     logging.info(

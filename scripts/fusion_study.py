@@ -34,7 +34,7 @@ def cv_map_fast(run_a, run_b, qrels, num_folds=20, alpha_stepsize=0.01,
     best-alpha search and test scoring as row/column means.  Same fold
     assignment (RandomState(seed) shuffle + array_split), same
     standardize normalizer, same mean-of-present-scores combination."""
-    from cunvsm_tpu.query.metrics import average_precision
+    from cunvsm.query.metrics import average_precision
 
     alphas = np.arange(0.0, 1.0, alpha_stepsize)
     rng = np.random.RandomState(seed)
@@ -120,13 +120,13 @@ def main(argv=None):
 
     jax.config.update("jax_platforms", "cpu")
 
-    from cunvsm_tpu.config import DataConfig
-    from cunvsm_tpu.data.corpus import build_corpus
-    from cunvsm_tpu.data.text import iter_trectext, lemur_stopwords, tokenize
-    from cunvsm_tpu.io.trec import read_qrels, read_run, read_topics
-    from cunvsm_tpu.query.fusion import fuse_fixed_alpha
-    from cunvsm_tpu.query.metrics import evaluate_run
-    from cunvsm_tpu.query.qlm import build_qlm_index, qlm_rank
+    from cunvsm.config import DataConfig
+    from cunvsm.data.corpus import build_corpus
+    from cunvsm.data.text import iter_trectext, lemur_stopwords, tokenize
+    from cunvsm.io.trec import read_qrels, read_run, read_topics
+    from cunvsm.query.fusion import fuse_fixed_alpha
+    from cunvsm.query.metrics import evaluate_run
+    from cunvsm.query.qlm import build_qlm_index, qlm_rank
 
     stopwords = lemur_stopwords()
     docs = list(iter_trectext(
@@ -180,8 +180,8 @@ def main(argv=None):
     }
 
     if args.cv_grid:
-        from cunvsm_tpu.query.fusion import fuse_cross_validated_grid
-        from cunvsm_tpu.query.qlm import prf_variant_runs
+        from cunvsm.query.fusion import fuse_cross_validated_grid
+        from cunvsm.query.qlm import prf_variant_runs
 
         for smoothing in ("jm", "dirichlet"):
             variants = prf_variant_runs(

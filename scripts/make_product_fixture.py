@@ -62,7 +62,7 @@ def main(argv=None):
     rng = np.random.RandomState(args.gen_seed)
     res = args.resources
 
-    from cunvsm_tpu.io.trec import read_qrels, read_topics
+    from cunvsm.io.trec import read_qrels, read_topics
 
     with open(os.path.join(res, "product_list")) as f:
         products = [line.strip() for line in f if line.strip()]

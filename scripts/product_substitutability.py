@@ -51,13 +51,12 @@ def main(argv=None):
     args = p.parse_args(argv)
     logging.basicConfig(level="INFO", format="%(asctime)s %(message)s")
 
-    if args.platform:
-        import jax
+    from cunvsm.cli._platform import apply_platform
 
-        jax.config.update("jax_platforms", args.platform)
+    apply_platform(args)
 
 
-    from cunvsm_tpu.config import (
+    from cunvsm.config import (
         AdamConfig,
         AdamMode,
         DataConfig,
@@ -66,16 +65,16 @@ def main(argv=None):
         TrainConfig,
         UpdateMethod,
     )
-    from cunvsm_tpu.data.corpus import load_corpus
-    from cunvsm_tpu.data.sources import SimilaritySource, load_similarities
-    from cunvsm_tpu.data.text import tokenize
-    from cunvsm_tpu.io.trec import read_qrels, read_topics, write_run
-    from cunvsm_tpu.query.engine import QueryEngine
-    from cunvsm_tpu.query.metrics import evaluate_run
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.data.corpus import load_corpus
+    from cunvsm.data.sources import SimilaritySource, load_similarities
+    from cunvsm.data.text import tokenize
+    from cunvsm.io.trec import read_qrels, read_topics, write_run
+    from cunvsm.query.engine import QueryEngine
+    from cunvsm.query.metrics import evaluate_run
+    from cunvsm.train.trainer import train_model
 
     os.makedirs(args.workdir, exist_ok=True)
-    from cunvsm_tpu.data.text import lemur_stopwords
+    from cunvsm.data.text import lemur_stopwords
 
     stopwords = lemur_stopwords()
     # The corpus must be stopword-filtered like the queries (the reference

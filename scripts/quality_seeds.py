@@ -1,4 +1,4 @@
-"""Multi-seed Cranfield NVSM quality campaign (real TPU).
+"""Multi-seed Cranfield NVSM quality campaign (GPU or CPU).
 
 Trains the canonical NVSM configuration (functions.sh:263-271,369-400)
 across a grid of (sampling-config, seed) pairs and appends one JSON line
@@ -48,23 +48,22 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     logging.basicConfig(level="INFO", format="%(asctime)s %(message)s")
-    if args.platform:
-        import jax
+    from cunvsm.cli._platform import apply_platform
 
-        jax.config.update("jax_platforms", args.platform)
+    apply_platform(args)
 
-    from cunvsm_tpu.config import (
+    from cunvsm.config import (
         AdamConfig, AdamMode, DataConfig, ModelDesc, Nonlinearity,
         TrainConfig, UpdateMethod,
     )
-    from cunvsm_tpu.data.corpus import build_corpus
-    from cunvsm_tpu.data.text import iter_trectext, lemur_stopwords, tokenize
-    from cunvsm_tpu.io.trec import read_qrels, read_topics
-    from cunvsm_tpu.query.engine import QueryEngine
-    from cunvsm_tpu.query.fusion import fuse_fixed_alpha
-    from cunvsm_tpu.query.metrics import evaluate_run
-    from cunvsm_tpu.query.qlm import build_qlm_index, qlm_rank
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.data.corpus import build_corpus
+    from cunvsm.data.text import iter_trectext, lemur_stopwords, tokenize
+    from cunvsm.io.trec import read_qrels, read_topics
+    from cunvsm.query.engine import QueryEngine
+    from cunvsm.query.fusion import fuse_fixed_alpha
+    from cunvsm.query.metrics import evaluate_run
+    from cunvsm.query.qlm import build_qlm_index, qlm_rank
+    from cunvsm.train.trainer import train_model
 
     import numpy as np
 
@@ -118,7 +117,7 @@ def main(argv=None):
         )
         run = engine.rank(queries, top_k=1000)
         if args.dump_runs:
-            from cunvsm_tpu.io.trec import write_run
+            from cunvsm.io.trec import write_run
 
             os.makedirs(args.dump_runs, exist_ok=True)
             write_run(

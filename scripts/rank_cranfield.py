@@ -46,10 +46,10 @@ def main(argv=None):
     p.add_argument("--stream_dtype", default="float32",
                    choices=("float32", "bfloat16"))
     p.add_argument("--shared_negatives", action="store_true",
-                   help="batch-shared negative sampling (TPU-native mode)")
+                   help="batch-shared negative sampling (GEMM-shaped mode)")
     p.add_argument("--num_negatives", type=int, default=10)
     p.add_argument("--negative_pool_size", type=int, default=-1,
-                   help="rolled-pool negative sampling (TPU-native mode "
+                   help="rolled-pool negative sampling (GEMM-shaped mode "
                         "keeping the exact per-example loss)")
     p.add_argument("--negative_pool_stride", type=int, default=0)
     p.add_argument("--window_sum_dtype", default="float32",
@@ -93,17 +93,19 @@ def main(argv=None):
 
     logging.basicConfig(level="INFO", format="%(asctime)s %(message)s")
 
+    from cunvsm.cli._platform import apply_platform
+
+    apply_platform(args)
     if args.platform:
         import jax
 
-        jax.config.update("jax_platforms", args.platform)
         if args.platform == "cpu" and args.mesh:
             data_axis, model_axis = (int(x) for x in args.mesh.split("x"))
             jax.config.update(
                 "jax_num_cpu_devices", data_axis * model_axis
             )
 
-    from cunvsm_tpu.config import (
+    from cunvsm.config import (
         AdamConfig,
         AdamMode,
         DataConfig,
@@ -112,14 +114,14 @@ def main(argv=None):
         TrainConfig,
         UpdateMethod,
     )
-    from cunvsm_tpu.data.corpus import build_corpus
-    from cunvsm_tpu.data.text import iter_trectext, lemur_stopwords, tokenize
-    from cunvsm_tpu.io.trec import read_qrels, read_topics, write_run
-    from cunvsm_tpu.query.engine import load_query_engine
-    from cunvsm_tpu.query.fusion import fuse_fixed_alpha
-    from cunvsm_tpu.query.metrics import evaluate_run
-    from cunvsm_tpu.query.qlm import build_qlm_index, qlm_rank
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.data.corpus import build_corpus
+    from cunvsm.data.text import iter_trectext, lemur_stopwords, tokenize
+    from cunvsm.io.trec import read_qrels, read_topics, write_run
+    from cunvsm.query.engine import load_query_engine
+    from cunvsm.query.fusion import fuse_fixed_alpha
+    from cunvsm.query.metrics import evaluate_run
+    from cunvsm.query.qlm import build_qlm_index, qlm_rank
+    from cunvsm.train.trainer import train_model
 
     os.makedirs(args.workdir, exist_ok=True)
     stopwords = lemur_stopwords()
@@ -187,7 +189,7 @@ def main(argv=None):
     )
     mesh = None
     if args.mesh:
-        from cunvsm_tpu.parallel.mesh import make_mesh
+        from cunvsm.parallel.mesh import make_mesh
 
         data_axis, model_axis = (int(x) for x in args.mesh.split("x"))
         mesh = make_mesh(data_axis, model_axis)
@@ -239,7 +241,7 @@ def main(argv=None):
     # against Indri tooling's own PRF runs) join the fusion grid by
     # basename.
     if args.lexical_runs_dir:
-        from cunvsm_tpu.io.trec import read_run
+        from cunvsm.io.trec import read_run
 
         for fname in sorted(os.listdir(args.lexical_runs_dir)):
             path = os.path.join(args.lexical_runs_dir, fname)
@@ -270,8 +272,8 @@ def main(argv=None):
         args.grid_cv_fusion == "auto" and not args.quick
     )
     if do_grid_cv and model_runs:
-        from cunvsm_tpu.query.fusion import fuse_cross_validated_grid
-        from cunvsm_tpu.query.qlm import PRF_GRID, prf_variant_runs
+        from cunvsm.query.fusion import fuse_cross_validated_grid
+        from cunvsm.query.qlm import PRF_GRID, prf_variant_runs
 
         grid_selections = {}
         for smoothing in ("jm", "dirichlet"):

@@ -4,7 +4,7 @@
 # protocol on it end to end — native multi-index ingestion, on-device
 # sampled collection-scale training, validation-epoch selection, a
 # simulated mid-run crash, and --resume recovery — publishing wall-clock
-# and the selected-epoch test MAP to results/rehearse_adhoc_r4.json.
+# and the selected-epoch test MAP to build/rehearse_adhoc.json.
 #
 # Usage: bash scripts/rehearse_adhoc.sh [root=/tmp/adhoc500k] [workdir]
 set -x
@@ -32,5 +32,6 @@ echo "stage 1 exited with $? (expected nonzero: simulated crash)"
 # Stage 2: resume from the last dumped epoch and finish the protocol.
 python scripts/rank_adhoc.py "${COMMON[@]}" --resume || exit 1
 
-cp "$WD/results.json" results/rehearse_adhoc_r4.json
+mkdir -p build
+cp "$WD/results.json" build/rehearse_adhoc.json
 echo REHEARSAL-DONE

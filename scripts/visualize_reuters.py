@@ -35,13 +35,12 @@ def main(argv=None):
     args = p.parse_args(argv)
     logging.basicConfig(level="INFO")
 
-    if args.platform:
-        import jax
+    from cunvsm.cli._platform import apply_platform
 
-        jax.config.update("jax_platforms", args.platform)
+    apply_platform(args)
 
-    from cunvsm_tpu.cli import extract_reuters, visualize
-    from cunvsm_tpu.config import (
+    from cunvsm.cli import extract_reuters, visualize
+    from cunvsm.config import (
         AdamConfig,
         AdamMode,
         DataConfig,
@@ -50,8 +49,8 @@ def main(argv=None):
         TrainConfig,
         UpdateMethod,
     )
-    from cunvsm_tpu.data.corpus import load_corpus
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.data.corpus import load_corpus
+    from cunvsm.train.trainer import train_model
 
     os.makedirs(args.workdir, exist_ok=True)
     plots = os.path.join(args.workdir, "plots")

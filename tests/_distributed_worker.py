@@ -40,7 +40,7 @@ def main() -> int:
 
     jax.config.update("jax_platforms", "cpu")
     if args.num_processes > 1:
-        from cunvsm_tpu.parallel.distributed import initialize
+        from cunvsm.parallel.distributed import initialize
 
         initialize(
             coordinator_address=f"localhost:{args.port}",
@@ -50,7 +50,7 @@ def main() -> int:
 
     import numpy as np
 
-    from cunvsm_tpu.config import (
+    from cunvsm.config import (
         AdamConfig,
         AdamMode,
         ModelDesc,
@@ -58,10 +58,10 @@ def main() -> int:
         TrainConfig,
         UpdateMethod,
     )
-    from cunvsm_tpu.data.synth import uniform_corpus
-    from cunvsm_tpu.parallel.distributed import fetch, is_primary
-    from cunvsm_tpu.parallel.mesh import make_mesh
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.data.synth import uniform_corpus
+    from cunvsm.parallel.distributed import fetch, is_primary
+    from cunvsm.parallel.mesh import make_mesh
+    from cunvsm.train.trainer import train_model
 
     desc = ModelDesc(
         word_repr_size=16,

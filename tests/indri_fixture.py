@@ -1,7 +1,7 @@
 """Synthetic Indri DiskIndex repository writer (test support).
 
 Writes the subset of the on-disk format that both repository readers
-(`cunvsm_tpu/data/indri.py` and `native/indri.cpp`) consume — RVL direct
+(`cunvsm/data/indri.py` and `native/indri.cpp`) consume — RVL direct
 files, BulkTree vocabularies, Keyfile docno lookups, manifests — so
 multi-index repositories can be synthesized and read back (the format
 itself is pinned against the real Brown index by tests/test_indri.py).

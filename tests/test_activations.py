@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.ops.activations import (
+from cunvsm.ops.activations import (
     hard_tanh,
     l2_normalize_rows,
     log_truncated_sigmoid,

@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cunvsm_tpu.ops.batchnorm import batch_norm_train
+from cunvsm.ops.batchnorm import batch_norm_train
 
 
 def test_constant_input_yields_beta():

@@ -6,10 +6,10 @@ import numpy as np
 import h5py
 import pytest
 
-from cunvsm_tpu.config import ModelDesc, TrainConfig, UpdateMethod
-from cunvsm_tpu.io import checkpoint as ckpt
-from cunvsm_tpu.models.params import ModelParams, init_params
-from cunvsm_tpu.optim.updates import Optimizer
+from cunvsm.config import ModelDesc, TrainConfig, UpdateMethod
+from cunvsm.io import checkpoint as ckpt
+from cunvsm.models.params import ModelParams, init_params
+from cunvsm.optim.updates import Optimizer
 
 
 def make_params():
@@ -116,8 +116,8 @@ class TestAsyncCheckpointWriter:
     def _params(self):
         import jax
 
-        from cunvsm_tpu.config import ModelDesc
-        from cunvsm_tpu.models.params import init_params
+        from cunvsm.config import ModelDesc
+        from cunvsm.models.params import init_params
 
         return init_params(
             jax.random.PRNGKey(0), 12, 9,
@@ -125,7 +125,7 @@ class TestAsyncCheckpointWriter:
         )
 
     def test_matches_sync_writes(self, tmp_path):
-        from cunvsm_tpu.io import checkpoint as ckpt
+        from cunvsm.io import checkpoint as ckpt
 
         params = self._params()
         sync_prefix = str(tmp_path / "sync")
@@ -154,7 +154,7 @@ class TestAsyncCheckpointWriter:
         assert ea == 3 and int(xa["total_batches"]) == 7
 
     def test_write_order_and_overwrite_guard(self, tmp_path):
-        from cunvsm_tpu.io import checkpoint as ckpt
+        from cunvsm.io import checkpoint as ckpt
 
         params = self._params()
         prefix = str(tmp_path / "m")
@@ -174,8 +174,8 @@ class TestAsyncCheckpointWriter:
         import h5py
         import jax.numpy as jnp
 
-        from cunvsm_tpu.io import checkpoint as ckpt
-        from cunvsm_tpu.models.params import ModelParams
+        from cunvsm.io import checkpoint as ckpt
+        from cunvsm.models.params import ModelParams
 
         rng = np.random.RandomState(0)
         params = ModelParams(
@@ -193,3 +193,39 @@ class TestAsyncCheckpointWriter:
         np.testing.assert_array_equal(
             np.asarray(loaded.entity_reprs), np.asarray(params.entity_reprs)
         )
+
+
+def test_training_and_ranking_need_neither_h5py_nor_protobuf():
+    """Checkpoint interop is optional: the trainer without an output
+    prefix and the in-memory query engine import and run with h5py and
+    protobuf unavailable."""
+    import os
+    import subprocess
+    import sys
+
+    code = r"""
+import sys
+sys.modules["h5py"] = None
+sys.modules["google.protobuf"] = None
+import jax
+jax.config.update("jax_platforms", "cpu")
+from cunvsm.config import ModelDesc, TrainConfig
+from cunvsm.data.synth import uniform_corpus
+from cunvsm.query.engine import QueryEngine
+from cunvsm.train.trainer import train_model
+
+corpus = uniform_corpus(16, 12, 50, window_size=4, seed=0)
+res = train_model(ModelDesc(word_repr_size=8, entity_repr_size=6),
+                  TrainConfig(batch_size=16, window_size=4, num_epochs=1),
+                  corpus, output_prefix=None)
+engine = QueryEngine(res.params, corpus.vocab.terms, corpus.docnos)
+run = engine.rank({"q": ["t1", "t2"]}, top_k=3)
+assert len(run["q"]) == 3, run
+print("OK")
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "OK" in r.stdout

@@ -5,14 +5,14 @@ import os
 import numpy as np
 import pytest
 
-from cunvsm_tpu.cli import (
+from cunvsm.cli import (
     combine_runs as cli_combine,
     dump_vocabulary as cli_dump,
     extract_reuters as cli_reuters,
     query as cli_query,
     train as cli_train,
 )
-from cunvsm_tpu.io.trec import read_run
+from cunvsm.io.trec import read_run
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +175,7 @@ def test_extract_reuters_cli(tmp_path):
         ]
     )
     assert rc == 0
-    from cunvsm_tpu.data.text import iter_trectext
+    from cunvsm.data.text import iter_trectext
 
     docs = list(iter_trectext(prefix + "_0.trectext"))
     assert len(docs) == 2
@@ -187,7 +187,7 @@ def test_extract_reuters_cli(tmp_path):
 
 
 def test_visualize_cli(trained_prefix, tmp_path):
-    from cunvsm_tpu.cli import visualize as cli_vis
+    from cunvsm.cli import visualize as cli_vis
 
     classes = tmp_path / "classes.txt"
     with open(f"{trained_prefix}_docnos.txt") as f:
@@ -240,3 +240,41 @@ def test_query_multiple_topic_files(trained_prefix, tmp_path):
     a = read_run(f"{run_out}-topicsA.txt")
     b = read_run(f"{run_out}-topicsB.txt")
     assert set(a) == {"1"} and set(b) == {"9"}
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    import jax
+
+    from cunvsm.cli import _platform
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert _platform.enable_compile_cache() == str(tmp_path)
+    # Left to JAX: nothing else configured.
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    import jax
+
+    from cunvsm.cli import _platform
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(repo, ".jax_cache")
+    try:
+        assert _platform.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+        # Fixed: a second call (another process) gets the same path.
+        assert _platform.enable_compile_cache() == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_device_record_on_cpu():
+    from cunvsm.cli._platform import device_record
+
+    rec = device_record()
+    assert rec["platform"] == "cpu" and rec["count"] >= 1
+    assert "card" not in rec

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from cunvsm_tpu.compat import nvsm
-from cunvsm_tpu.config import DataConfig, ModelDesc, TrainConfig
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.train.trainer import train_model
+from cunvsm.compat import nvsm
+from cunvsm.config import DataConfig, ModelDesc, TrainConfig
+from cunvsm.data.corpus import build_corpus
+from cunvsm.train.trainer import train_model
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +125,7 @@ def _import_reference_nvsm():
         sys.modules["cvangysel"] = pkg
         sys.modules["cvangysel.sklearn_utils"] = sk
     if "nvsm_pb2" not in sys.modules:
-        from cunvsm_tpu.proto import nvsm_pb2
+        from cunvsm.proto import nvsm_pb2
 
         sys.modules["nvsm_pb2"] = nvsm_pb2
     spec = importlib.util.spec_from_file_location(
@@ -140,7 +140,7 @@ def test_reference_loader_executes_on_repo_checkpoint(model_prefix):
     """The reference's py/nvsm/base.py:13-24 loader, executed unmodified,
     must read a checkpoint written by this framework: same shapes, same
     mappings, and query_representation/infer/query parity with
-    cunvsm_tpu.compat.nvsm — converting "wire-compatible by construction"
+    cunvsm.compat.nvsm — converting "wire-compatible by construction"
     into "wire-compatible, demonstrated"."""
     prefix, corpus = model_prefix
     ref = _import_reference_nvsm()

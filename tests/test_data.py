@@ -3,22 +3,22 @@
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.data.instances import (
+from cunvsm.config import DataConfig
+from cunvsm.data.corpus import build_corpus
+from cunvsm.data.instances import (
     FeatureWeighting,
     TextEntitySource,
     Weighting,
 )
-from cunvsm_tpu.data.sources import (
+from cunvsm.data.sources import (
     Prefetcher,
     SimilaritySource,
     load_similarities,
     repeating,
     zip_sources,
 )
-from cunvsm_tpu.data.text import is_number, iter_trectext, tokenize
-from cunvsm_tpu.data.vocab import build_vocabulary
+from cunvsm.data.text import is_number, iter_trectext, tokenize
+from cunvsm.data.vocab import build_vocabulary
 
 
 def default_cfg(**kw):
@@ -289,7 +289,7 @@ class TestPackedCorpus:
         assert loaded.vocab.total_terms == c.vocab.total_terms
 
     def test_load_corpus_npz_dispatch(self, tmp_path):
-        from cunvsm_tpu.data.corpus import load_corpus
+        from cunvsm.data.corpus import load_corpus
 
         docs = [("d0", "a b c d e"), ("d1", "c d e f g")]
         c = build_corpus(docs, default_cfg(), window_size=3)

@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig, ModelDesc, TrainConfig
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.data.device_sampler import (
+from cunvsm.config import DataConfig, ModelDesc, TrainConfig
+from cunvsm.data.corpus import build_corpus
+from cunvsm.data.device_sampler import (
     make_device_sampled_multistep,
     prepare_device_corpus,
     sample_batch,
 )
-from cunvsm_tpu.data.instances import FeatureWeighting, Weighting
-from cunvsm_tpu.models.params import init_params
-from cunvsm_tpu.optim.updates import Optimizer
+from cunvsm.data.instances import FeatureWeighting, Weighting
+from cunvsm.models.params import init_params
+from cunvsm.optim.updates import Optimizer
 
 
 def corpus():
@@ -99,7 +99,7 @@ class TestSampleBatch:
     def test_wide_rows_cover_every_offset(self):
         # Deterministic sweep: every (row offset mod G) x window position
         # combination resolves to the right tokens.
-        from cunvsm_tpu.data.device_sampler import WIDE_ROW_STRIDE
+        from cunvsm.data.device_sampler import WIDE_ROW_STRIDE
 
         n_tokens = 5 * WIDE_ROW_STRIDE + 3
         toks = " ".join(f"w{i}" for i in range(n_tokens))
@@ -178,7 +178,7 @@ class TestDeviceSampledTraining:
 
 
 def test_trainer_on_device_sampling(tmp_path):
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.train.trainer import train_model
 
     c = corpus()
     desc = ModelDesc(word_repr_size=8, entity_repr_size=6)
@@ -199,8 +199,8 @@ def test_trainer_on_device_sampling(tmp_path):
 
 
 def test_trainer_mesh_with_on_device_sampling():
-    from cunvsm_tpu.parallel.mesh import make_mesh
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.parallel.mesh import make_mesh
+    from cunvsm.train.trainer import train_model
 
     c = corpus()
     desc = ModelDesc(word_repr_size=8, entity_repr_size=8)
@@ -222,8 +222,8 @@ def test_trainer_mesh_on_device_sampling_remainder_call(caplog):
     # back through make_device_sampled_sharded_multistep).
     import logging
 
-    from cunvsm_tpu.parallel.mesh import make_mesh
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.parallel.mesh import make_mesh
+    from cunvsm.train.trainer import train_model
 
     rng = np.random.RandomState(11)
     docs = [
@@ -242,7 +242,7 @@ def test_trainer_mesh_on_device_sampling_remainder_call(caplog):
         learning_rate=0.05,
     )
     mesh = make_mesh(2, 4)
-    with caplog.at_level(logging.INFO, logger="cunvsm_tpu.train.trainer"):
+    with caplog.at_level(logging.INFO, logger="cunvsm.train.trainer"):
         r = train_model(
             desc, cfg, c, mesh=mesh, on_device_sampling=True,
             steps_per_call=7,
@@ -260,7 +260,7 @@ class TestEpochExact:
         (data_indri.cpp:337-344)."""
         import math
 
-        from cunvsm_tpu.data.device_sampler import epoch_doc_pointers
+        from cunvsm.data.device_sampler import epoch_doc_pointers
 
         c = corpus()
         dc = prepare_device_corpus(c)
@@ -275,7 +275,7 @@ class TestEpochExact:
     def test_epoch_exact_multistep_consumes_permutation(self):
         """Scanned steps consume consecutive slices of the shuffled pointer
         array: over one epoch every document is trained exactly its quota."""
-        from cunvsm_tpu.data.device_sampler import make_epoch_permuter
+        from cunvsm.data.device_sampler import make_epoch_permuter
 
         c = corpus()
         dc = prepare_device_corpus(c)
@@ -284,7 +284,7 @@ class TestEpochExact:
         assert perm.shape == (n_ptrs, 3)
         # The permutation is a rearrangement of the pointer-meta multiset:
         # doc ids in column 0, each row carrying that doc's (offset, length).
-        from cunvsm_tpu.data.device_sampler import epoch_doc_pointers
+        from cunvsm.data.device_sampler import epoch_doc_pointers
 
         np.testing.assert_array_equal(
             np.sort(np.asarray(perm[:, 0])),
@@ -317,7 +317,7 @@ class TestEpochExact:
         with the same stable sort keys), and a batch sampled through the
         packed rows is identical to one sampled through bare doc ids —
         the doc-meta-gather elimination is bit-neutral."""
-        from cunvsm_tpu.data.device_sampler import (
+        from cunvsm.data.device_sampler import (
             epoch_doc_pointers,
             make_epoch_permuter,
         )
@@ -353,7 +353,7 @@ class TestEpochExact:
     def test_exact_labels_match_slice(self):
         """The batch labels are exactly the cursor slice of the permutation
         (no resampling in exact mode)."""
-        from cunvsm_tpu.data.device_sampler import make_epoch_permuter
+        from cunvsm.data.device_sampler import make_epoch_permuter
 
         c = corpus()
         dc = prepare_device_corpus(c)
@@ -376,7 +376,7 @@ def test_trainer_on_device_sampling_pooled_negatives(tmp_path):
     the compiled step."""
     import dataclasses
 
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.train.trainer import train_model
 
     c = corpus()
     desc = ModelDesc(word_repr_size=8, entity_repr_size=6)
@@ -393,7 +393,7 @@ def test_trainer_on_device_sampling_pooled_negatives(tmp_path):
 
 
 def test_trainer_host_path_pooled_negatives(tmp_path):
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.train.trainer import train_model
 
     c = corpus()
     desc = ModelDesc(word_repr_size=8, entity_repr_size=6)
@@ -411,7 +411,7 @@ class TestStratifiedPermuter:
     semantics (per-group shuffle, stratified batches) on one device."""
 
     def _dc(self):
-        from cunvsm_tpu.data.synth import uniform_corpus
+        from cunvsm.data.synth import uniform_corpus
 
         c = uniform_corpus(24, 12, 50, window_size=3, seed=0)
         return prepare_device_corpus(c)
@@ -419,7 +419,7 @@ class TestStratifiedPermuter:
     def test_batches_stratified_and_counts_exact(self):
         import math
 
-        from cunvsm_tpu.data.device_sampler import (
+        from cunvsm.data.device_sampler import (
             _token_balanced_groups,
             make_stratified_epoch_permuter,
         )
@@ -461,7 +461,7 @@ class TestStratifiedPermuter:
             assert cnt[docs].sum() == len(docs) * spd + pad
 
     def test_reshuffles_per_epoch_same_multiset(self):
-        from cunvsm_tpu.data.device_sampler import (
+        from cunvsm.data.device_sampler import (
             make_stratified_epoch_permuter,
         )
 
@@ -473,7 +473,7 @@ class TestStratifiedPermuter:
         assert np.array_equal(np.sort(a), np.sort(b))
 
     def test_batch_size_must_divide(self):
-        from cunvsm_tpu.data.device_sampler import (
+        from cunvsm.data.device_sampler import (
             make_stratified_epoch_permuter,
         )
 
@@ -482,8 +482,8 @@ class TestStratifiedPermuter:
 
 
 def test_trainer_stratified_groups(tmp_path):
-    from cunvsm_tpu.data.synth import uniform_corpus
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.data.synth import uniform_corpus
+    from cunvsm.train.trainer import train_model
 
     c = uniform_corpus(24, 12, 50, window_size=3, seed=0)
     desc = ModelDesc(word_repr_size=8, entity_repr_size=6)

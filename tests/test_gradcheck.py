@@ -1,6 +1,6 @@
 """End-to-end finite-difference gradient checks for all five objectives.
 
-The TPU-side analog of gradient_checking_tests.cu: every analytic gradient
+The analog of gradient_checking_tests.cu: every analytic gradient
 (including the sparse descriptor scatters) is verified against central finite
 differences over every parameter, in float64 on CPU, across the reference's
 model-desc grid (seeds x nonlinearity x BN x L2-norm x bias_negative_samples,
@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import ModelDesc, Nonlinearity, TrainConfig
-from cunvsm_tpu.models import objectives as obj
-from cunvsm_tpu.models.params import ModelParams
-from cunvsm_tpu.train.gradcheck import check_gradients
-from cunvsm_tpu.train.step import ObjectiveKind
+from cunvsm.config import ModelDesc, Nonlinearity, TrainConfig
+from cunvsm.models import objectives as obj
+from cunvsm.models.params import ModelParams
+from cunvsm.train.gradcheck import check_gradients
+from cunvsm.train.step import ObjectiveKind
 
 NUM_WORDS, NUM_ENTITIES, D_W, D_E = 7, 5, 3, 4
 BATCH, WINDOW, NUM_NEG = 4, 2, 2
@@ -197,7 +197,7 @@ def test_padded_batch_zero_weight_instances():
         params, padded, ids_pad, desc, batch_size_normalizer=BATCH
     )
     np.testing.assert_allclose(float(c_full), float(c_pad), rtol=1e-10)
-    from cunvsm_tpu.train.gradcheck import densify_grads
+    from cunvsm.train.gradcheck import densify_grads
 
     d_full = densify_grads(params, g_full)
     d_pad = densify_grads(params, g_pad)
@@ -226,9 +226,9 @@ def test_shared_negatives_gradients_through_training(seed, desc):
     protocol, gradient_checking_tests.cu:68-334)."""
     import dataclasses
 
-    from cunvsm_tpu.config import AdamConfig, AdamMode, UpdateMethod
-    from cunvsm_tpu.optim.updates import Optimizer
-    from cunvsm_tpu.train.step import make_train_step
+    from cunvsm.config import AdamConfig, AdamMode, UpdateMethod
+    from cunvsm.optim.updates import Optimizer
+    from cunvsm.train.step import make_train_step
 
     cfg = dataclasses.replace(
         _base_cfg(),

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import (
+from cunvsm.config import (
     AdamConfig,
     AdamMode,
     ModelDesc,
@@ -26,11 +26,11 @@ from cunvsm_tpu.config import (
     TrainConfig,
     UpdateMethod,
 )
-from cunvsm_tpu.models import objectives as obj
-from cunvsm_tpu.models.params import ModelParams
-from cunvsm_tpu.optim.updates import Optimizer
-from cunvsm_tpu.train.gradcheck import check_gradients
-from cunvsm_tpu.train.step import (
+from cunvsm.models import objectives as obj
+from cunvsm.models.params import ModelParams
+from cunvsm.optim.updates import Optimizer
+from cunvsm.train.gradcheck import check_gradients
+from cunvsm.train.step import (
     ObjectiveKind,
     compute_cost_and_grads,
     scaled_regularization_lambda,

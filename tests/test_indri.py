@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig
-from cunvsm_tpu.data.corpus import load_corpus
-from cunvsm_tpu.data.indri import (
+from cunvsm.config import DataConfig
+from cunvsm.data.corpus import load_corpus
+from cunvsm.data.indri import (
     IndriIndex,
     build_corpus_from_indri,
     is_indri_repository,
@@ -181,12 +181,12 @@ def test_real_index_term_ids_in_metadata():
 
 def test_training_smoke_on_brown():
     # End-to-end: instances generate and a train step runs on the real index.
-    from cunvsm_tpu.config import ModelDesc, TrainConfig
-    from cunvsm_tpu.data.instances import TextEntitySource
-    from cunvsm_tpu.models.objectives import TextEntityBatch
-    from cunvsm_tpu.models.params import init_params
-    from cunvsm_tpu.optim.updates import Optimizer
-    from cunvsm_tpu.train.step import make_train_step
+    from cunvsm.config import ModelDesc, TrainConfig
+    from cunvsm.data.instances import TextEntitySource
+    from cunvsm.models.objectives import TextEntityBatch
+    from cunvsm.models.params import init_params
+    from cunvsm.optim.updates import Optimizer
+    from cunvsm.train.step import make_train_step
     import jax
     import jax.numpy as jnp
 
@@ -210,7 +210,7 @@ def test_training_smoke_on_brown():
 def test_metadata_carries_indri_document_ids():
     # ObjectInfo.index_object_id must be the real Indri document id
     # (data_indri.cpp:557-571), not the model id.
-    from cunvsm_tpu.io.checkpoint import build_metadata
+    from cunvsm.io.checkpoint import build_metadata
 
     document_list = ["cj36", "cg62"]
     corpus = build_corpus_from_indri(
@@ -233,8 +233,8 @@ def test_vendored_stoplist_matches_index_stopper():
     """The vendored Lemur stoplist must equal the stopper block recorded in
     the checked-in Brown index manifest (the same stoplist.dft the
     reference's build_index downloads, functions.sh:344-350)."""
-    from cunvsm_tpu.data.indri import IndriIndex
-    from cunvsm_tpu.data.text import lemur_stopwords
+    from cunvsm.data.indri import IndriIndex
+    from cunvsm.data.text import lemur_stopwords
 
     idx = IndriIndex(BROWN)
     assert lemur_stopwords() == idx.stopwords

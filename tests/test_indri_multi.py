@@ -10,8 +10,8 @@ Brown-index tests (tests/test_indri.py) exercising the same parsers.
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig
-from cunvsm_tpu.data.indri import IndriIndex, build_corpus_from_indri
+from cunvsm.config import DataConfig
+from cunvsm.data.indri import IndriIndex, build_corpus_from_indri
 from tests.indri_fixture import write_repository
 
 DOCS = [
@@ -145,7 +145,7 @@ def test_native_reader_matches_python_on_multi_index(repos):
     """The C++ reader (native/indri.cpp) must produce the identical packed
     corpus from a multi-index repository (the Python pipeline is the
     semantic oracle — same contract as tests/test_native.py)."""
-    from cunvsm_tpu.data import native
+    from cunvsm.data import native
 
     if not native.available():
         pytest.skip("native library not built (make -C native)")
@@ -165,7 +165,7 @@ def test_native_reader_matches_python_on_multi_index(repos):
 
 
 def test_native_reader_matches_python_with_document_list(repos):
-    from cunvsm_tpu.data import native
+    from cunvsm.data import native
 
     if not native.available():
         pytest.skip("native library not built (make -C native)")
@@ -215,7 +215,7 @@ class TestKeyfileRobustness:
     ):
         import logging
 
-        from cunvsm_tpu.data.indri import iter_keyfile_entries
+        from cunvsm.data.indri import iter_keyfile_entries
 
         path, data, blk_size, struct_mod = self._write(tmp_path)
         clean = list(iter_keyfile_entries(path))
@@ -240,7 +240,7 @@ class TestKeyfileRobustness:
         # cannot encode entries, so nothing is lost and no warning fires.
         import logging
 
-        from cunvsm_tpu.data.indri import iter_keyfile_entries
+        from cunvsm.data.indri import iter_keyfile_entries
 
         path, data, blk_size, struct_mod = self._write(tmp_path)
         clean = list(iter_keyfile_entries(path))
@@ -260,7 +260,7 @@ class TestKeyfileRobustness:
     def test_truncated_file_warns(self, tmp_path, caplog):
         import logging
 
-        from cunvsm_tpu.data.indri import iter_keyfile_entries
+        from cunvsm.data.indri import iter_keyfile_entries
 
         path, data, blk_size, _ = self._write(tmp_path)
         open(path, "wb").write(data[: len(data) - blk_size // 2])
@@ -272,7 +272,7 @@ class TestKeyfileRobustness:
     def test_oversized_chars_block_warns(self, tmp_path, caplog):
         import logging
 
-        from cunvsm_tpu.data.indri import iter_keyfile_entries
+        from cunvsm.data.indri import iter_keyfile_entries
 
         path, data, blk_size, struct_mod = self._write(tmp_path)
         base = 2 * blk_size
@@ -294,7 +294,7 @@ def test_keyfile_bulktree_randomized_roundtrip():
 
     import numpy as np
 
-    from cunvsm_tpu.data.indri import (
+    from cunvsm.data.indri import (
         iter_bulktree_leaves,
         iter_keyfile_entries,
     )

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig, ModelDesc, TrainConfig
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.models import objectives as obj
-from cunvsm_tpu.models.params import init_params
-from cunvsm_tpu.optim.updates import Optimizer
-from cunvsm_tpu.train.step import make_multistep_train_step, make_train_step
-from cunvsm_tpu.train.trainer import train_model
+from cunvsm.config import DataConfig, ModelDesc, TrainConfig
+from cunvsm.data.corpus import build_corpus
+from cunvsm.models import objectives as obj
+from cunvsm.models.params import init_params
+from cunvsm.optim.updates import Optimizer
+from cunvsm.train.step import make_multistep_train_step, make_train_step
+from cunvsm.train.trainer import train_model
 
 
 def test_multistep_equals_chained_single_steps():

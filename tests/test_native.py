@@ -11,10 +11,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig
-from cunvsm_tpu.data import native
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.data.text import iter_trectext
+from cunvsm.config import DataConfig
+from cunvsm.data import native
+from cunvsm.data.corpus import build_corpus
+from cunvsm.data.text import iter_trectext
 
 REPO_ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -90,7 +90,7 @@ def test_native_with_stopwords(trectext, tmp_path):
     stop = tmp_path / "stop.txt"
     stop.write_text("the\nw0\n")
     cfg = CONFIGS[0]
-    from cunvsm_tpu.data.text import load_stopwords
+    from cunvsm.data.text import load_stopwords
 
     py = build_corpus(
         iter_trectext(trectext), cfg, 4,
@@ -143,7 +143,7 @@ class TestNativeIndri:
         ],
     )
     def test_differential(self, kwargs):
-        from cunvsm_tpu.data.indri import build_corpus_from_indri
+        from cunvsm.data.indri import build_corpus_from_indri
 
         cfg = DataConfig(corpus_path=BROWN, **kwargs)
         want = build_corpus_from_indri(BROWN, cfg, 16)
@@ -162,7 +162,7 @@ class TestNativeIndri:
         np.testing.assert_array_equal(got.index_doc_ids, want.index_doc_ids)
 
     def test_document_list(self, tmp_path):
-        from cunvsm_tpu.data.indri import build_corpus_from_indri
+        from cunvsm.data.indri import build_corpus_from_indri
 
         doclist = tmp_path / "docs.txt"
         doclist.write_text("cj36\nck17\ncn04\ncg62\ncm02\n")
@@ -185,7 +185,7 @@ class TestNativeIndri:
     def test_term_blacklist_case_insensitive(self, tmp_path):
         """Blacklist entries are lowercased on both paths (the Python
         pipeline's contract); a mixed-case entry must still drop the term."""
-        from cunvsm_tpu.data.indri import build_corpus_from_indri
+        from cunvsm.data.indri import build_corpus_from_indri
 
         blacklist = tmp_path / "blacklist.txt"
         blacklist.write_text("TIME\nState\n")
@@ -210,7 +210,7 @@ def test_native_matches_python_on_randomized_corpora(tmp_path):
     import dataclasses
     import random
 
-    from cunvsm_tpu.data import native
+    from cunvsm.data import native
 
     if not native.available():
         pytest.skip("native library not built (make -C native)")

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import ModelDesc, Nonlinearity
-from cunvsm_tpu.models import objectives as obj
-from cunvsm_tpu.models.params import ModelParams, init_params
+from cunvsm.config import ModelDesc, Nonlinearity
+from cunvsm.models import objectives as obj
+from cunvsm.models.params import ModelParams, init_params
 
 
 def make_params(rng, num_words=7, num_entities=5, d_w=3, d_e=4):
@@ -213,7 +213,7 @@ class TestFactoredEntityGrads:
     def test_factored_matches_expanded_densified(self, rng):
         """The rank-1 factored entity descriptor must densify to exactly the
         expanded per-update gradients."""
-        from cunvsm_tpu.train.gradcheck import densify_grads
+        from cunvsm.train.gradcheck import densify_grads
 
         params = make_params(rng)
         batch = obj.TextEntityBatch(
@@ -367,11 +367,11 @@ class TestSharedNegatives:
     def test_train_step_runs_and_rejects_sparse_optimizers(self, rng):
         import dataclasses
 
-        from cunvsm_tpu.config import (
+        from cunvsm.config import (
             AdamConfig, AdamMode, TrainConfig, UpdateMethod,
         )
-        from cunvsm_tpu.optim.updates import Optimizer
-        from cunvsm_tpu.train.step import make_train_step
+        from cunvsm.optim.updates import Optimizer
+        from cunvsm.train.step import make_train_step
 
         desc = ModelDesc(
             word_repr_size=4, entity_repr_size=3,
@@ -547,11 +547,11 @@ class TestPooledNegatives:
     def test_train_step_dispatch(self, rng):
         import dataclasses
 
-        from cunvsm_tpu.config import (
+        from cunvsm.config import (
             AdamConfig, AdamMode, TrainConfig, UpdateMethod,
         )
-        from cunvsm_tpu.optim.updates import Optimizer
-        from cunvsm_tpu.train.step import make_train_step
+        from cunvsm.optim.updates import Optimizer
+        from cunvsm.train.step import make_train_step
 
         desc = ModelDesc(
             word_repr_size=4, entity_repr_size=3,
@@ -581,8 +581,8 @@ class TestNegativeSamplingResolution:
     """Auto resolution of the rolled-pool layout (TrainConfig default -1)."""
 
     def _cfg(self, **kw):
-        from cunvsm_tpu.config import AdamConfig, AdamMode
-        from cunvsm_tpu.config import TrainConfig, UpdateMethod
+        from cunvsm.config import AdamConfig, AdamMode
+        from cunvsm.config import TrainConfig, UpdateMethod
 
         base = dict(
             update_method=UpdateMethod.ADAM,
@@ -593,7 +593,7 @@ class TestNegativeSamplingResolution:
         return TrainConfig(**base)
 
     def test_auto_selects_pool_and_odd_stride(self):
-        from cunvsm_tpu.train.step import resolve_negative_sampling
+        from cunvsm.train.step import resolve_negative_sampling
 
         desc = ModelDesc()
         p, s = resolve_negative_sampling(self._cfg(), desc, 51200)
@@ -614,7 +614,7 @@ class TestNegativeSamplingResolution:
         cover more than 25% of the collection (the regime where pooled
         sampling measurably loses on Cranfield, PERFORMANCE.md), and keeps
         the pooled layout at collection scale where it measurably wins."""
-        from cunvsm_tpu.train.step import resolve_negative_sampling
+        from cunvsm.train.step import resolve_negative_sampling
 
         desc = ModelDesc()
         # Cranfield scale: 2048-pool would cover >100% of 1398 docs.
@@ -647,8 +647,8 @@ class TestNegativeSamplingResolution:
         assert p == 2048
 
     def test_auto_respects_mode_requirements(self):
-        from cunvsm_tpu.config import UpdateMethod
-        from cunvsm_tpu.train.step import resolve_negative_sampling
+        from cunvsm.config import UpdateMethod
+        from cunvsm.train.step import resolve_negative_sampling
 
         desc = ModelDesc()
         # Non-accumulate-only optimizer: per-instance.
@@ -683,7 +683,7 @@ class TestNegativeSamplingResolution:
         a pool smaller than k used to spin the stride search forever."""
         import pytest
 
-        from cunvsm_tpu.train.step import resolve_negative_sampling
+        from cunvsm.train.step import resolve_negative_sampling
 
         desc = ModelDesc()
         # Pool smaller than the number of negatives (k=10 in _cfg).
@@ -700,7 +700,7 @@ class TestNegativeSamplingResolution:
 
 def test_rolled_pool_rejects_non_multiple_batch():
     import jax.numpy as jnp
-    import cunvsm_tpu.models.objectives as obj
+    import cunvsm.models.objectives as obj
 
     pool_ids = jnp.arange(8, dtype=jnp.int32)
     with pytest.raises(ValueError, match="positive multiple"):

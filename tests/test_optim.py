@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import (
+from cunvsm.config import (
     AdamConfig,
     AdamMode,
     TrainConfig,
     UpdateMethod,
 )
-from cunvsm_tpu.models.objectives import AscentGrads, SparseGrad
-from cunvsm_tpu.models.params import ModelParams
-from cunvsm_tpu.optim.updates import Optimizer
+from cunvsm.models.objectives import AscentGrads, SparseGrad
+from cunvsm.models.params import ModelParams
+from cunvsm.optim.updates import Optimizer
 
 NUM_WORDS, NUM_ENTITIES, D_W, D_E = 6, 4, 3, 2
 
@@ -278,6 +278,48 @@ def test_adam_representations_full(lam, lr):
     np.testing.assert_allclose(np.asarray(new.word_reprs), want, rtol=1e-10)
 
 
+@pytest.mark.parametrize("rows,dim", [(1, 3), (37, 13), (301, 300)])
+def test_full_adam_sweep_float32_vs_float64(rows, dim):
+    """The shipped float32 full_adam sweep (scatter, L2 folded into the
+    moments, bias-corrected dense step from non-zero m, v at t=3) against
+    its float64 closed form, at odd row counts."""
+    from cunvsm.optim.updates import ReprAdamState, _repr_adam_full
+
+    rng = np.random.RandomState(rows)
+    beta1, beta2, eps, lr, lam, t = 0.9, 0.999, 1e-6, 1e-3, 2e-4, 3
+    table = (0.05 * rng.randn(rows, dim)).astype(np.float32)
+    m = (1e-3 * rng.randn(rows, dim)).astype(np.float32)
+    v = (1e-6 * np.abs(rng.randn(rows, dim))).astype(np.float32)
+    idx = rng.randint(0, rows, (23, 3)).astype(np.int32)
+    w = rng.rand(23, 3).astype(np.float32)
+    g = (1e-2 * rng.randn(23, dim)).astype(np.float32)
+    state = ReprAdamState(
+        jnp.asarray(m), jnp.asarray(v), jnp.asarray(t, jnp.int32)
+    )
+    desc = SparseGrad(jnp.asarray(g), jnp.asarray(idx), jnp.asarray(w))
+    state, new = _repr_adam_full(
+        state, jnp.asarray(table), (desc,), lr, lam, beta1, beta2, eps
+    )
+    assert new.dtype == jnp.float32 and state.m.dtype == jnp.float32
+
+    s = np.zeros((rows, dim))
+    upd = w[:, :, None].astype(np.float64) * g[:, None, :]
+    np.add.at(s, idx.reshape(-1), upd.reshape(-1, dim))
+    p = table.astype(np.float64)
+    agg = s - lam * p
+    m_want = beta1 * m + (1 - beta1) * agg
+    v_want = beta2 * v + (1 - beta2) * agg**2
+    bc = np.sqrt(1 - beta2**t) / (1 - beta1**t)
+    p_want = p + lr * bc * m_want / (np.sqrt(v_want) + eps)
+    np.testing.assert_allclose(
+        np.asarray(state.m), m_want, rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(
+        np.asarray(state.v), v_want, rtol=1e-5, atol=1e-13)
+    # f32 rounding, amplified by m / (sqrt(v) + eps) where v is near eps^2.
+    np.testing.assert_allclose(np.asarray(new), p_want, rtol=0, atol=1e-5)
+    assert int(state.t) == t + 1
+
+
 def test_full_adam_multiple_descriptors():
     """Composite objectives produce several descriptors for one table;
     full_adam must accumulate all of them (CompositeGradients path,
@@ -338,7 +380,7 @@ class TestSegmentAccumulateLayouts:
     semantics exactly, including at the 16-bit packing boundaries."""
 
     def _check(self, num_rows, desc, monkeypatch=None, variant=None):
-        from cunvsm_tpu.optim.updates import _sorted_segment_accumulate
+        from cunvsm.optim.updates import _sorted_segment_accumulate
 
         if variant is not None:
             monkeypatch.setenv("CUNVSM_ACCUM_VARIANT", variant)
@@ -397,10 +439,10 @@ def test_uniform_feature_weights_flag_matches_explicit_ones():
     accumulation (ops/prefix_diff.py), whose summation *order* differs from
     the scatter path, so equality is to accumulation rounding, not bits;
     with the path disabled the results must be bit-identical."""
-    from cunvsm_tpu.config import ModelDesc, Nonlinearity
-    from cunvsm_tpu.models.objectives import TextEntityBatch
-    from cunvsm_tpu.models.params import init_params
-    from cunvsm_tpu.train.step import make_train_step
+    from cunvsm.config import ModelDesc, Nonlinearity
+    from cunvsm.models.objectives import TextEntityBatch
+    from cunvsm.models.params import init_params
+    from cunvsm.train.step import make_train_step
 
     desc = ModelDesc(
         word_repr_size=5,

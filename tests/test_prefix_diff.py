@@ -13,18 +13,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.models.objectives import SparseGrad
-from cunvsm_tpu.ops.prefix_diff import (
+from cunvsm.models.objectives import SparseGrad
+from cunvsm.ops.prefix_diff import (
     prefix_diff_applicable,
     prefix_diff_segment_sum,
 )
-from cunvsm_tpu.optim.updates import _sorted_segment_accumulate
+from cunvsm.optim.updates import _sorted_segment_accumulate
 
 
 @pytest.fixture(autouse=True)
 def _enable_prefix_diff(monkeypatch):
-    # The path is opt-in (near-parity on the current v5e toolchain,
-    # PERFORMANCE.md); tests force it on.
+    # The path is opt-in; tests force it on.
     monkeypatch.setenv("CUNVSM_PREFIX_DIFF", "1")
 
 
@@ -133,14 +132,14 @@ def test_gradcheck_full_adam_uniform_pool(rng):
     """FD-check gradients of the strided rolled-pool objective, and run a
     full training step whose word accumulation takes the prefix-diff path
     (uniform weights + full_adam, the shipped configuration)."""
-    from cunvsm_tpu.config import (
+    from cunvsm.config import (
         AdamConfig, AdamMode, ModelDesc, Nonlinearity, TrainConfig,
         UpdateMethod,
     )
-    from cunvsm_tpu.models.objectives import TextEntityBatch
-    from cunvsm_tpu.models.params import ModelParams
-    from cunvsm_tpu.train.gradcheck import check_gradients
-    from cunvsm_tpu.train.step import (
+    from cunvsm.models.objectives import TextEntityBatch
+    from cunvsm.models.params import ModelParams
+    from cunvsm.train.gradcheck import check_gradients
+    from cunvsm.train.step import (
         ObjectiveKind, compute_cost_and_grads, objective_kind_from_config,
     )
 
@@ -182,8 +181,8 @@ def test_gradcheck_full_adam_uniform_pool(rng):
 
     # One real optimizer step through the prefix-diff word accumulation,
     # compared against the same step with the path disabled.
-    from cunvsm_tpu.optim.updates import Optimizer
-    from cunvsm_tpu.train.step import make_train_step
+    from cunvsm.optim.updates import Optimizer
+    from cunvsm.train.step import make_train_step
 
     opt = Optimizer(cfg)
     step = make_train_step(desc, cfg, jit=False)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.query.qlm import build_qlm_index, qlm_rank, tfidf_rank
+from cunvsm.config import DataConfig
+from cunvsm.data.corpus import build_corpus
+from cunvsm.query.qlm import build_qlm_index, qlm_rank, tfidf_rank
 
 
 @pytest.fixture

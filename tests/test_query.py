@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cunvsm_tpu.io.trec import read_qrels, read_run, read_topics, write_run
-from cunvsm_tpu.models.params import ModelParams
-from cunvsm_tpu.query.engine import QueryEngine
-from cunvsm_tpu.query.fusion import compute_combined_run, fuse_fixed_alpha
-from cunvsm_tpu.query.metrics import (
+from cunvsm.io.trec import read_qrels, read_run, read_topics, write_run
+from cunvsm.models.params import ModelParams
+from cunvsm.query.engine import QueryEngine
+from cunvsm.query.fusion import compute_combined_run, fuse_fixed_alpha
+from cunvsm.query.metrics import (
     average_precision,
     evaluate_run,
     ndcg_at,
@@ -173,7 +173,7 @@ class TestQueryExtras:
         np.testing.assert_allclose(np.linalg.norm(r), 1.0, rtol=1e-12)
 
     def test_term_bruteforcer(self):
-        from cunvsm_tpu.query.engine import TermBruteforcer
+        from cunvsm.query.engine import TermBruteforcer
 
         eng, params = make_engine()
         bf = TermBruteforcer(eng, max_ngram_cardinality=1)
@@ -187,7 +187,7 @@ class TestQueryExtras:
         max_terms (the reference brute-forces all 1-grams,
         py/nvsm/base.py:106-162); the cap applies only to cardinality>=2
         combinations."""
-        from cunvsm_tpu.query.engine import TermBruteforcer
+        from cunvsm.query.engine import TermBruteforcer
 
         eng, params = make_engine()
         vocab = len(eng.term_to_id)
@@ -201,7 +201,7 @@ class TestQueryExtras:
             assert bf.nearest_ngrams(target, k=1)[0][0] == (term,)
 
     def test_term_bruteforcer_cardinality2_cap(self):
-        from cunvsm_tpu.query.engine import TermBruteforcer
+        from cunvsm.query.engine import TermBruteforcer
 
         eng, params = make_engine()
         vocab = len(eng.term_to_id)
@@ -215,9 +215,9 @@ class TestQueryExtras:
         assert bf.nearest_ngrams(target, k=1)[0][0] == pair
 
     def test_tfidf_rank(self):
-        from cunvsm_tpu.config import DataConfig
-        from cunvsm_tpu.data.corpus import build_corpus
-        from cunvsm_tpu.query.qlm import build_qlm_index, tfidf_rank
+        from cunvsm.config import DataConfig
+        from cunvsm.data.corpus import build_corpus
+        from cunvsm.query.qlm import build_qlm_index, tfidf_rank
 
         docs = [("d0", "apple apple banana"), ("d1", "banana cherry"),
                 ("d2", "cherry cherry cherry")]
@@ -253,7 +253,7 @@ class TestQueryExtras:
 
 class TestCrossValidatedFusion:
     def test_cv_alpha_search_prefers_better_run(self):
-        from cunvsm_tpu.query.fusion import fuse_cross_validated
+        from cunvsm.query.fusion import fuse_cross_validated
 
         # run_good ranks the relevant doc first for every query; run_bad is
         # inverted.  CV fusion should learn alpha weighting run_good high and
@@ -266,7 +266,7 @@ class TestCrossValidatedFusion:
             normalizer="minmax",
         )
         assert set(fused) == set(qrels)
-        from cunvsm_tpu.query.metrics import evaluate_run
+        from cunvsm.query.metrics import evaluate_run
 
         m = evaluate_run(fused, qrels, measures=("map",))
         assert m["map"] == 1.0
@@ -275,7 +275,7 @@ class TestCrossValidatedFusion:
         # With exactly one lexical candidate the grid protocol degenerates
         # to fuse_cross_validated (same folds, same alpha grid, same
         # tie-break), so the fused runs must be identical.
-        from cunvsm_tpu.query.fusion import (
+        from cunvsm.query.fusion import (
             fuse_cross_validated,
             fuse_cross_validated_grid,
         )
@@ -306,8 +306,8 @@ class TestCrossValidatedFusion:
         assert {s["lexical"] for s in selections} == {"only"}
 
     def test_cv_grid_selects_better_variant(self):
-        from cunvsm_tpu.query.fusion import fuse_cross_validated_grid
-        from cunvsm_tpu.query.metrics import evaluate_run
+        from cunvsm.query.fusion import fuse_cross_validated_grid
+        from cunvsm.query.metrics import evaluate_run
 
         qrels = {f"q{i}": {"rel": 1, "irr": 0} for i in range(10)}
         run_a = {f"q{i}": [("irr", 2.0), ("rel", 1.0)] for i in range(10)}
@@ -321,7 +321,7 @@ class TestCrossValidatedFusion:
         assert evaluate_run(fused, qrels, measures=("map",))["map"] == 1.0
 
     def test_recall_metric(self):
-        from cunvsm_tpu.query.metrics import recall_at
+        from cunvsm.query.metrics import recall_at
 
         ranked = [("a", 3.0), ("b", 2.0), ("c", 1.0)]
         rels = {"a": 1, "c": 1, "z": 1}

@@ -14,9 +14,9 @@ Primitive-level bit validation lives in tests/test_stdrng.py.
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig, ModelDesc, TrainConfig
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.data.instances import TextEntitySource
+from cunvsm.config import DataConfig, ModelDesc, TrainConfig
+from cunvsm.data.corpus import build_corpus
+from cunvsm.data.instances import TextEntitySource
 
 # Toy corpus: 5 docs, in-vocab lengths 6..10, window 4 -> avg_len 8,
 # num_samples ceil(8-4+1)=5, 25 instances, batch 8 -> 3 full batches
@@ -110,8 +110,8 @@ def test_glorot_init_matches_reference_for_seed_1():
     """The full replay protocol is bit-exact against real libstdc++: epoch-1
     reset draws (draw_next_epoch), Glorot init (reference_init_params), then
     the label stream continues from the post-init stream position."""
-    from cunvsm_tpu.config import ModelDesc
-    from cunvsm_tpu.models.params import reference_init_params
+    from cunvsm.config import ModelDesc
+    from cunvsm.models.params import reference_init_params
 
     corpus = toy_corpus()
     src = make_source()
@@ -160,8 +160,8 @@ def test_glorot_init_full_differential_against_live_gplusplus(tmp_path):
         return [int(x) for x in
                 re.search(name + r" = \[([^\]]*)\]", txt).group(1).split(",")]
 
-    from cunvsm_tpu.config import ModelDesc
-    from cunvsm_tpu.models.params import reference_init_params
+    from cunvsm.config import ModelDesc
+    from cunvsm.models.params import reference_init_params
 
     corpus = toy_corpus()
     src = make_source()
@@ -185,7 +185,7 @@ def test_trainer_uses_reference_init():
     """train_model under reference_rng initializes from the shared stream
     (epoch-1 reset draws first, Glorot second): with num_epochs=0 the
     returned params ARE the init and must match the pinned g++ bits."""
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.train.trainer import train_model
 
     corpus = toy_corpus()
     desc = ModelDesc(
@@ -234,7 +234,7 @@ def test_training_consumes_host_negatives():
     the run is bit-reproducible."""
     import jax
 
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.train.trainer import train_model
 
     corpus = toy_corpus()
     desc = ModelDesc(word_repr_size=4, entity_repr_size=4)
@@ -251,7 +251,7 @@ def test_training_consumes_host_negatives():
 
 
 def test_reference_rng_guards():
-    from cunvsm_tpu.train.step import resolve_negative_sampling
+    from cunvsm.train.step import resolve_negative_sampling
 
     desc = ModelDesc(word_repr_size=4, entity_repr_size=4)
     cfg = TrainConfig(
@@ -266,7 +266,7 @@ def test_reference_rng_guards():
     )
     assert resolve_negative_sampling(cfg2, desc, BATCH) == (0, 1)
 
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.train.trainer import train_model
 
     cfg3 = TrainConfig(
         num_epochs=1, batch_size=BATCH, window_size=WINDOW,

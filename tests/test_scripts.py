@@ -138,7 +138,7 @@ def test_rank_adhoc_protocol_on_multi_index_indri_repo(
     two-index repo -> load_corpus dispatch -> train -> split protocol."""
     import rank_adhoc
 
-    from cunvsm_tpu.data.text import iter_trectext, tokenize
+    from cunvsm.data.text import iter_trectext, tokenize
     from tests.indri_fixture import write_repository
 
     docs = [
@@ -172,8 +172,8 @@ def test_fusion_study_fast_cv_matches_library():
     # fuse_cross_validated + evaluate_run exactly on the same protocol.
     import numpy as np
 
-    from cunvsm_tpu.query.fusion import fuse_cross_validated
-    from cunvsm_tpu.query.metrics import evaluate_run
+    from cunvsm.query.fusion import fuse_cross_validated
+    from cunvsm.query.metrics import evaluate_run
     from fusion_study import cv_map_fast
 
     rng = np.random.RandomState(3)
@@ -216,7 +216,7 @@ def test_reference_adhoc_splits_and_product_resources_parse():
     # (topics 'id;text', float-graded qrels, product_list, substitutes).
     import os
 
-    from cunvsm_tpu.io.trec import read_qrels, read_topics
+    from cunvsm.io.trec import read_qrels, read_topics
 
     splits = "/root/reference/resources/adhoc-splits"
     if not os.path.isdir(splits):

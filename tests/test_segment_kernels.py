@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.ops.segment_kernels import sorted_segment_sum
+from cunvsm.ops.segment_kernels import sorted_segment_sum
 
 
 def _reference(upd, rows, num_rows):

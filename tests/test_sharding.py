@@ -10,23 +10,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import (
+from cunvsm.config import (
     AdamConfig,
     AdamMode,
     ModelDesc,
     TrainConfig,
     UpdateMethod,
 )
-from cunvsm_tpu.models import objectives as obj
-from cunvsm_tpu.models.params import init_params
-from cunvsm_tpu.optim.updates import Optimizer
-from cunvsm_tpu.parallel.mesh import (
+from cunvsm.models import objectives as obj
+from cunvsm.models.params import init_params
+from cunvsm.optim.updates import Optimizer
+from cunvsm.parallel.mesh import (
     default_mesh_shape,
     make_mesh,
     make_sharded_train_step,
 )
-from cunvsm_tpu.parallel.query import make_sharded_scorer
-from cunvsm_tpu.train.step import make_train_step
+from cunvsm.parallel.query import make_sharded_scorer
+from cunvsm.train.step import make_train_step
 
 NUM_WORDS, NUM_ENTITIES = 40, 32
 D_W, D_E = 8, 8
@@ -196,9 +196,9 @@ def test_sharded_query_no_full_score_allgather():
 def test_trainer_with_mesh():
     """End-to-end mesh training through train_model: entity padding,
     sharded steps, unpadded results."""
-    from cunvsm_tpu.config import DataConfig
-    from cunvsm_tpu.data.corpus import build_corpus
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.config import DataConfig
+    from cunvsm.data.corpus import build_corpus
+    from cunvsm.train.trainer import train_model
 
     docs = [
         (f"d{i}", " ".join(
@@ -228,9 +228,9 @@ def test_trainer_mesh_divisibility_validated_up_front():
     batch must fail with a clear ValueError at train_model entry, not an
     opaque shard_map trace error (the full_adam word accumulation shards
     the update stream over EVERY mesh axis)."""
-    from cunvsm_tpu.config import DataConfig
-    from cunvsm_tpu.data.corpus import build_corpus
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.config import DataConfig
+    from cunvsm.data.corpus import build_corpus
+    from cunvsm.train.trainer import train_model
 
     docs = [
         (f"d{i}", " ".join(
@@ -265,9 +265,9 @@ def test_trainer_mesh_divisibility_validated_up_front():
 
 
 def test_trainer_with_mesh_and_multistep():
-    from cunvsm_tpu.config import DataConfig
-    from cunvsm_tpu.data.corpus import build_corpus
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.config import DataConfig
+    from cunvsm.data.corpus import build_corpus
+    from cunvsm.train.trainer import train_model
 
     docs = [
         (f"d{i}", " ".join(
@@ -294,8 +294,8 @@ def test_trainer_with_mesh_and_multistep():
 def test_query_engine_with_mesh_matches_dense():
     """QueryEngine(mesh=...) serves through the sharded per-shard top-k
     path and must rank identically to the single-device engine."""
-    from cunvsm_tpu.models.params import ModelParams
-    from cunvsm_tpu.query.engine import QueryEngine
+    from cunvsm.models.params import ModelParams
+    from cunvsm.query.engine import QueryEngine
 
     rng = np.random.RandomState(5)
     num_words, num_docs, d_w, d_e = 40, 64, 8, 8
@@ -387,8 +387,8 @@ def test_query_engine_mesh_second_topk_masks_padding():
     sharded scorer over the already-padded cached matrix; the pad rows must
     stay masked (they used to be treated as real documents and could reach
     the docnos lookup)."""
-    from cunvsm_tpu.models.params import ModelParams
-    from cunvsm_tpu.query.engine import QueryEngine
+    from cunvsm.models.params import ModelParams
+    from cunvsm.query.engine import QueryEngine
 
     rng = np.random.RandomState(6)
     num_words, num_docs, d_w, d_e = 40, 61, 8, 8  # 61 % 8 != 0 -> padding
@@ -428,7 +428,7 @@ def _train_step_hlo(pool, big=True, stream_dtype="float32"):
     entity stream B*(k+1)*d_e > word table V*d_w."""
     import dataclasses
 
-    from cunvsm_tpu.config import Nonlinearity
+    from cunvsm.config import Nonlinearity
 
     D, V, d_e, d_w, B_, W_, k = 8192, 128, 32, 16, 256, 8, 6
     desc = ModelDesc(
@@ -474,7 +474,7 @@ def test_sharded_train_step_comm_volume_pooled():
     replicate-on-unpartitionable fallback: before round 3 the global
     accumulation sort made GSPMD all-reduce the full update stream
     (614 MB/step at canonical shapes)."""
-    from cunvsm_tpu.parallel import audit
+    from cunvsm.parallel import audit
 
     hlo, s, _ = _train_step_hlo(pool=64)
     cs = audit.collectives(hlo)
@@ -520,7 +520,7 @@ def test_sharded_train_step_comm_volume_per_instance():
     B*(k+1) rows; assert the collectives stay bounded by that stream (no
     table-sized replication), which documents why mesh training defaults
     to the pooled layout."""
-    from cunvsm_tpu.parallel import audit
+    from cunvsm.parallel import audit
 
     hlo, s, _ = _train_step_hlo(pool=0)
     table_bytes = s["D"] * s["d_e"] * 4
@@ -551,14 +551,14 @@ def test_device_sampled_sharded_comm_volume():
     while the dryrun stayed green (it asserted only cost finiteness and
     sharding specs).  Asserts on the compiled HLO of the very program
     `scripts/e2e_throughput.py --mesh` measures."""
-    from cunvsm_tpu.config import Nonlinearity
-    from cunvsm_tpu.data.device_sampler import (
+    from cunvsm.config import Nonlinearity
+    from cunvsm.data.device_sampler import (
         make_device_sampled_sharded_multistep,
         make_epoch_permuter,
         prepare_device_corpus,
     )
-    from cunvsm_tpu.data.synth import uniform_corpus
-    from cunvsm_tpu.parallel import audit
+    from cunvsm.data.synth import uniform_corpus
+    from cunvsm.parallel import audit
 
     D, V, d_e, d_w, B_, W_, k = 8192, 128, 32, 16, 256, 8, 6
     desc = ModelDesc(
@@ -613,11 +613,11 @@ def test_device_sampled_sharded_rejects_bad_divisibility():
     """Batch not divisible by the total device count fails fast with a
     clear message (the shard_mapped accumulation requirement), not deep
     inside shard_map tracing."""
-    from cunvsm_tpu.data.device_sampler import (
+    from cunvsm.data.device_sampler import (
         make_device_sampled_sharded_multistep,
         prepare_device_corpus,
     )
-    from cunvsm_tpu.data.synth import uniform_corpus
+    from cunvsm.data.synth import uniform_corpus
 
     desc = ModelDesc(word_repr_size=8, entity_repr_size=8)
     cfg = TrainConfig(
@@ -663,7 +663,7 @@ def test_sharded_composite_matches_single_device(kind, method):
     single-device step bit-for-float (objective.cu:698-794 semantics)."""
     import dataclasses
 
-    from cunvsm_tpu.train.step import ObjectiveKind
+    from cunvsm.train.step import ObjectiveKind
 
     okind = ObjectiveKind(kind)
     desc, cfg, params, opt_state = make_setup(method)
@@ -717,9 +717,9 @@ def test_sharded_composite_comm_volume(kind):
     host-fed path in round 3 and the device-sampled path in round 4)."""
     import dataclasses
 
-    from cunvsm_tpu.config import Nonlinearity
-    from cunvsm_tpu.parallel import audit
-    from cunvsm_tpu.train.step import ObjectiveKind
+    from cunvsm.config import Nonlinearity
+    from cunvsm.parallel import audit
+    from cunvsm.train.step import ObjectiveKind
 
     okind = ObjectiveKind(kind)
     D, V, d_e, d_w, B_, W_, k = 8192, 128, 32, 16, 256, 8, 6
@@ -783,13 +783,13 @@ def test_sharded_composite_comm_volume(kind):
 
 
 # ---------------------------------------------------------------------------
-# Data-axis-sharded device corpus (pod-scale memory, round 5).
+# Data-axis-sharded device corpus (multi-card memory).
 # ---------------------------------------------------------------------------
 
 
 def _sharded_corpus_setup(num_docs=64, doc_len=20, vocab=128, window=5):
-    from cunvsm_tpu.data.device_sampler import prepare_sharded_device_corpus
-    from cunvsm_tpu.data.synth import uniform_corpus
+    from cunvsm.data.device_sampler import prepare_sharded_device_corpus
+    from cunvsm.data.synth import uniform_corpus
 
     corpus = uniform_corpus(num_docs, doc_len, vocab, window_size=window,
                             seed=0)
@@ -804,7 +804,7 @@ def test_sharded_corpus_sampling_is_valid_and_epoch_exact():
     preserves the reference's per-doc counts, data_indri.cpp:337-344)."""
     import math
 
-    from cunvsm_tpu.data.device_sampler import (
+    from cunvsm.data.device_sampler import (
         _make_sharded_sampler,
         make_sharded_epoch_permuter,
     )
@@ -850,12 +850,12 @@ def test_sharded_corpus_no_replicated_token_array():
     during development) and no collective may carry token data."""
     import re
 
-    from cunvsm_tpu.config import Nonlinearity
-    from cunvsm_tpu.data.device_sampler import (
+    from cunvsm.config import Nonlinearity
+    from cunvsm.data.device_sampler import (
         make_corpus_sharded_multistep,
         make_sharded_epoch_permuter,
     )
-    from cunvsm_tpu.parallel import audit
+    from cunvsm.parallel import audit
 
     corpus, mesh, sdc = _sharded_corpus_setup(
         num_docs=1024, doc_len=24, vocab=128
@@ -898,7 +898,7 @@ def test_sharded_corpus_no_replicated_token_array():
     # compiled per-device argument bytes must reflect the SHARD, not the
     # corpus — compare against the replicated-corpus multistep at the
     # same shapes (same params/opt-state/batch sizes).
-    from cunvsm_tpu.data.device_sampler import (
+    from cunvsm.data.device_sampler import (
         make_device_sampled_sharded_multistep,
         make_epoch_permuter,
         prepare_device_corpus,
@@ -931,9 +931,9 @@ def test_sharded_corpus_no_replicated_token_array():
 def test_trainer_shard_corpus_end_to_end():
     import dataclasses
 
-    from cunvsm_tpu.config import Nonlinearity
-    from cunvsm_tpu.data.synth import uniform_corpus
-    from cunvsm_tpu.train.trainer import train_model
+    from cunvsm.config import Nonlinearity
+    from cunvsm.data.synth import uniform_corpus
+    from cunvsm.train.trainer import train_model
 
     desc = ModelDesc(word_repr_size=16, entity_repr_size=16,
                      nonlinearity=Nonlinearity.HARD_TANH,
@@ -966,9 +966,9 @@ def test_sharded_word_psum_bf16_under_bf16_streams():
 
     Asserted on the LOWERED (pre-backend) module: the CPU backend used by
     the test mesh emulates bf16 by widening — its compiled HLO shows an
-    f32 all-reduce of converted values — while the TPU backend keeps bf16
+    f32 all-reduce of converted values — while the GPU backend keeps bf16
     collectives on the wire; the StableHLO all_reduce element type is the
-    platform-neutral statement of what TPU moves."""
+    platform-neutral statement of what the GPU moves."""
     import re
 
     def word_reduce_types(low, s):
@@ -1000,7 +1000,7 @@ def test_bf16_cross_chip_reduce_numerics():
     rounding of the f32-reduce sharded step (same seed, same batch)."""
     import dataclasses
 
-    from cunvsm_tpu.config import Nonlinearity
+    from cunvsm.config import Nonlinearity
 
     D, V, d_e, d_w, B_, W_, k = 256, 64, 8, 8, 64, 4, 2
     desc = ModelDesc(

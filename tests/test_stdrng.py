@@ -13,7 +13,7 @@ import struct
 
 import numpy as np
 
-from cunvsm_tpu.data.stdrng import (
+from cunvsm.data.stdrng import (
     MinstdRand0,
     generate_canonical_f32,
     glorot_uniform_f32,
@@ -177,7 +177,7 @@ def test_differential_fuzz_against_live_gplusplus(tmp_path):
 
 
 def test_lcg_block_matches_scalar():
-    from cunvsm_tpu.data.stdrng import _lcg_block
+    from cunvsm.data.stdrng import _lcg_block
 
     g = MinstdRand0(42)
     assert list(_lcg_block(MinstdRand0(42).state, 500)) == [
@@ -190,7 +190,7 @@ def test_fast_forward_uniform_draws_exact():
     rejection-sampling loop leaves it — mixed ranges, a high-rejection
     constant range (uerange ~2e9 rejects ~7% of raws), and both
     std_shuffle consumption paths (paired-swap and linear)."""
-    from cunvsm_tpu.data.stdrng import (
+    from cunvsm.data.stdrng import (
         fast_forward_uniform_draws,
         past_threshold,
         shuffle_draw_pasts,

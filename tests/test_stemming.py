@@ -14,7 +14,7 @@ import os
 
 import pytest
 
-from cunvsm_tpu.data.stemming import (
+from cunvsm.data.stemming import (
     QueryStemmer,
     krovetz_candidates,
     load_query_stemmer,
@@ -163,7 +163,7 @@ def test_porter_mode_identity_on_vocab_hit():
 
 
 def test_stemmer_sidecar_roundtrip(tmp_path):
-    from cunvsm_tpu.io.checkpoint import save_corpus_sidecars
+    from cunvsm.io.checkpoint import save_corpus_sidecars
 
     class C:
         class vocab:
@@ -192,9 +192,9 @@ def test_stemmer_sidecar_roundtrip(tmp_path):
     not os.path.isdir(BROWN), reason="Brown index not available"
 )
 def test_brown_index_inflected_query_hits():
-    from cunvsm_tpu.config import DataConfig
-    from cunvsm_tpu.data.indri import build_corpus_from_indri
-    from cunvsm_tpu.data.text import tokenize
+    from cunvsm.config import DataConfig
+    from cunvsm.data.indri import build_corpus_from_indri
+    from cunvsm.data.text import tokenize
 
     corpus = build_corpus_from_indri(
         BROWN,
@@ -242,7 +242,7 @@ def test_unknown_manifest_stemmer_degrades_with_warning(caplog):
     # raise.
     import logging
 
-    from cunvsm_tpu.data.stemming import QueryStemmer
+    from cunvsm.data.stemming import QueryStemmer
 
     with caplog.at_level(logging.WARNING):
         s = QueryStemmer("arabic", ["foo"], on_unknown="warn")
@@ -258,7 +258,7 @@ def test_porter_query_stemming_is_unconditional():
     # itself in the stemmed vocabulary but is not its own Porter fixed
     # point must still map to its stem (advisor finding, round 4); the raw
     # token is used only when the stem is OOV and the raw form is not.
-    from cunvsm_tpu.data.stemming import QueryStemmer, porter_stem
+    from cunvsm.data.stemming import QueryStemmer, porter_stem
 
     assert porter_stem("university") == "univers"
     # Both forms in vocab -> the stem wins (reference resolution).

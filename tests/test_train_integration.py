@@ -11,7 +11,7 @@ import logging
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import (
+from cunvsm.config import (
     AdamConfig,
     AdamMode,
     DataConfig,
@@ -20,12 +20,12 @@ from cunvsm_tpu.config import (
     TrainConfig,
     UpdateMethod,
 )
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.data.sources import SimilaritySource
-from cunvsm_tpu.io import checkpoint as ckpt
-from cunvsm_tpu.query.engine import QueryEngine, load_query_engine
-from cunvsm_tpu.query.metrics import evaluate_run
-from cunvsm_tpu.train.trainer import train_model
+from cunvsm.data.corpus import build_corpus
+from cunvsm.data.sources import SimilaritySource
+from cunvsm.io import checkpoint as ckpt
+from cunvsm.query.engine import QueryEngine, load_query_engine
+from cunvsm.query.metrics import evaluate_run
+from cunvsm.train.trainer import train_model
 
 TOPICS = {
     "space": "rocket orbit launch satellite astronaut mission gravity".split(),
@@ -214,7 +214,7 @@ def test_resume_equals_uninterrupted_on_device_sampling(tmp_path):
 def test_resume_equals_uninterrupted_on_mesh(tmp_path):
     """Resume determinism on the sharded path (entity padding + sharded
     opt state must round-trip through the resume file)."""
-    from cunvsm_tpu.parallel.mesh import make_mesh
+    from cunvsm.parallel.mesh import make_mesh
 
     docs, _ = synthetic_corpus(num_docs_per_topic=3, doc_len=20)
     corpus = build_corpus(

@@ -5,9 +5,9 @@ import logging
 import numpy as np
 import pytest
 
-from cunvsm_tpu.config import DataConfig, ModelDesc, TrainConfig
-from cunvsm_tpu.data.corpus import build_corpus
-from cunvsm_tpu.train.trainer import train_model
+from cunvsm.config import DataConfig, ModelDesc, TrainConfig
+from cunvsm.data.corpus import build_corpus
+from cunvsm.train.trainer import train_model
 
 
 def small_corpus(num_docs=4):
@@ -50,7 +50,7 @@ def test_check_gradients_flow():
 def test_log_every(caplog):
     corpus = small_corpus()
     desc = ModelDesc(word_repr_size=4, entity_repr_size=4)
-    with caplog.at_level(logging.INFO, logger="cunvsm_tpu.train.trainer"):
+    with caplog.at_level(logging.INFO, logger="cunvsm.train.trainer"):
         train_model(desc, small_cfg(), corpus, log_every=1)
     assert any("progress=" in m for m in caplog.messages)
 
@@ -58,7 +58,7 @@ def test_log_every(caplog):
 def test_compute_initial_cost(caplog):
     corpus = small_corpus()
     desc = ModelDesc(word_repr_size=4, entity_repr_size=4)
-    with caplog.at_level(logging.INFO, logger="cunvsm_tpu.train.trainer"):
+    with caplog.at_level(logging.INFO, logger="cunvsm.train.trainer"):
         train_model(desc, small_cfg(), corpus, compute_initial_cost=True)
     assert any("Initial cost" in m for m in caplog.messages)
 
@@ -94,7 +94,7 @@ def test_on_device_steps_per_call_remainder_call(caplog):
     cfg = small_cfg(num_epochs=2)
     # 4 docs x ceil(10-3+1)=8 instances, batch 4 -> 8 steps/epoch; K=7
     # does not divide: 1 call of 7 + a remainder call of 1.
-    with caplog.at_level(logging.INFO, logger="cunvsm_tpu.train.trainer"):
+    with caplog.at_level(logging.INFO, logger="cunvsm.train.trainer"):
         r = train_model(
             desc, cfg, corpus, on_device_sampling=True, steps_per_call=7
         )
@@ -114,7 +114,7 @@ def test_on_device_prime_step_count_keeps_call_size(caplog):
     corpus = small_corpus(num_docs=5)  # 5 docs x 8 instances, batch 8 -> 5
     desc = ModelDesc(word_repr_size=4, entity_repr_size=4)
     cfg = small_cfg(num_epochs=1, batch_size=8)
-    with caplog.at_level(logging.INFO, logger="cunvsm_tpu.train.trainer"):
+    with caplog.at_level(logging.INFO, logger="cunvsm.train.trainer"):
         r = train_model(
             desc, cfg, corpus, on_device_sampling=True, steps_per_call=3
         )

@@ -1,5 +1,5 @@
 // Parameterized libstdc++ RNG driver for differential fuzzing of the
-// Python twins in cunvsm_tpu/data/stdrng.py (tests/test_stdrng.py
+// Python twins in cunvsm/data/stdrng.py (tests/test_stdrng.py
 // compiles and runs this live when g++ is available, on top of the
 // pinned goldens from stdrng_golden.cpp).
 //

@@ -1,5 +1,5 @@
 // Golden-value generator for the libstdc++ RNG twins in
-// cunvsm_tpu/data/stdrng.py (the reference's host RNG machinery:
+// cunvsm/data/stdrng.py (the reference's host RNG machinery:
 // /root/reference/include/cuNVSM/base.h:36 typedef std::minstd_rand0 RNG;
 // cpp/labels.cu:3-22 negative sampling; cpp/data_indri.cpp:385-397
 // position draws + std::shuffle; cuda_utils.h:24-33 uniform ints +
